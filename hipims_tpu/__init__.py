@@ -1,4 +1,4 @@
-"""hipims-tpu: a TPU-native 2-D shallow-water flood-simulation framework.
+"""hipims-tpu: a 2-D shallow-water flood-simulation framework in JAX.
 
 Built from scratch in JAX (jit / shard_map / Pallas) with the capabilities of
 HiPIMS-OCL (first-order Godunov, MUSCL-Hancock and partial-inertial schemes,

@@ -1,4 +1,4 @@
-"""Console entry point — the TPU-native equivalent of the reference's
+"""Console entry point — the equivalent of the reference's
 main.cpp (argument parsing, config load, run, progress UI;
 reference: src/main.cpp:59-159, 376-459, 464-579).
 
@@ -16,7 +16,7 @@ import time
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="hipims-tpu",
-        description="TPU-native 2D shallow-water flood simulator")
+        description="2D shallow-water flood simulator (JAX)")
     ap.add_argument("--config-file", "-c", required=True,
                     help="XML configuration file (HiPIMS schema)")
     ap.add_argument("--log-file", "-l", default=None)
@@ -33,19 +33,19 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", type=int, default=None,
                     help="shard over this many devices (2-D mesh)")
     ap.add_argument("--platform", default=None,
-                    help="force a JAX platform (e.g. cpu, tpu); like the "
+                    help="force a JAX platform (e.g. cpu, gpu); like the "
                          "reference's deviceFilter")
     ap.add_argument("--mesh-shape", default=None,
                     help="explicit mesh shape, e.g. 2x4")
     ap.add_argument("--distributed", default=None, metavar="SPEC",
-                    help="multi-host init: 'env' (TPU pods — everything "
-                         "from the environment) or "
+                    help="multi-host init: 'env' (everything from the "
+                         "cluster environment) or "
                          "'coordinator:port,num_processes,process_id'")
     ap.add_argument("--precision", default=None,
                     choices=("double", "float", "compensated"),
                     help="override the XML floatingPointPrecision (e.g. "
-                         "run a reference 'double' model in the "
-                         "compensated f32 mode on TPU)")
+                         "run a reference 'double' model in native f64 "
+                         "instead of the compensated f32 mode)")
     ap.add_argument("--io-mode", default=None,
                     choices=("auto", "gather", "stream"),
                     help="output/checkpoint gathering: full-grid gather, "
@@ -164,6 +164,13 @@ def main(argv=None):
             log.line("WARNING: deviceFilter platform hint ignored "
                      "(JAX backend already initialised in-process); "
                      "use JAX_PLATFORMS or --platform at launch")
+
+    import jax
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    devices = jax.devices()
+    log.line(f"  Device:      {devices[0].platform} "
+             f"{devices[0].device_kind} x{len(devices)}")
 
     mesh = None
     if args.mesh or args.mesh_shape:

@@ -1,6 +1,6 @@
 """Cartesian domain: geometry, static fields, initial state, edge treatment.
 
-The TPU-native equivalent of CDomainCartesian (reference:
+The equivalent of CDomainCartesian (reference:
 src/Domain/Cartesian/CDomainCartesian.cpp): a raster grid with bed
 elevation, Manning roughness, disabled-cell masking via the -9999 sentinel,
 and closed/open edge handling by raising a 9999.9 wall on the never-updated
@@ -56,7 +56,8 @@ class Domain:
             # NODATA bed cells are disabled, as in the reference's
             # handleInputData (src/Domain/CDomain.cpp:294-397).
             self.active = self.zb > C.NODATA + 0.5
-        # Logical (pre-padding) grid dimensions.
+        # Logical grid dimensions (the extent the scheme's static ring and
+        # boundary forcing are measured from).
         self.logical_rows, self.logical_cols = self.zb.shape
         # Vertical datum removed from device-side elevations (set by
         # build(datum_shift=True); 0 until then).
@@ -118,30 +119,6 @@ class Domain:
             zb[:lr, lc - w:lc] = C.CLOSED_EDGE_ELEVATION
         if self.edge_treatment.get("west") == "closed":
             zb[:lr, 0:w] = C.CLOSED_EDGE_ELEVATION
-
-    def pad_for_tiles(self, sublane=8, lane=128):
-        """Grow the grid with disabled wall cells so rows % sublane == 0 and
-        cols % lane == 0 (the Pallas kernel's DMA alignment contract).
-        Padding cells carry the NODATA sentinel and a high bed, so they are
-        permanently dry and the logical grid's behaviour is unchanged; the
-        logical edge ring stays static via the kernel's index mask."""
-        rp = (-self.rows) % sublane
-        cp = (-self.cols) % lane
-        if rp == 0 and cp == 0:
-            return self
-        pad = ((0, rp), (0, cp))
-        self.zb = np.pad(self.zb, pad,
-                         constant_values=C.CLOSED_EDGE_ELEVATION)
-        self._zb0 = np.pad(self._zb0, pad,
-                           constant_values=C.CLOSED_EDGE_ELEVATION)
-        self.manning = np.pad(self.manning, pad, constant_values=0.0)
-        self.active = np.pad(self.active, pad, constant_values=False)
-        for attr in ("_depth", "_fsl", "_qx", "_qy"):
-            v = getattr(self, attr)
-            if v is not None:
-                setattr(self, attr, np.pad(np.asarray(v), pad,
-                                           constant_values=0.0))
-        return self
 
     def build(self, dtype=np.float64, apply_edges=True, edge_wall_width=1,
               datum_shift=False):

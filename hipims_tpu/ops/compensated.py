@@ -10,8 +10,8 @@ and force 64-bit as the default (reference:
 src/OpenCL/Executors/COCLProgram.cpp:359-406 precision switch;
 docs/papers/urban-flood-jhi "Paper Normal Style.tex":271, 338-339).
 
-TPUs have no hardware float64, so the TPU-native answer is an error-free
-transformation rather than emulation: the prognostic ``z`` carries a
+The answer here is an error-free transformation in single precision
+rather than 64-bit arithmetic: the prognostic ``z`` carries a
 compensation plane ``comp`` holding the rounding residue of its running
 sum (Neumaier/Kahan).  The visible float32 ``z`` stays the correctly
 rounded value every kernel already consumes — fluxes, wet/dry masks,
@@ -22,9 +22,11 @@ outputs are untouched — while ``z + comp`` tracks the true surface to
     z'    = z + y                 # one rounding, error e = y - (z' - z)
     comp' = y - (z' - z)          # Fast2Sum residue (|z| >= |y| here)
 
-Cost: one extra (rows, cols) float32 plane (+8 B/cell of HBM traffic in
-the fused kernels, ~8%) and three VPU adds — versus the reference's 2-3x
-slowdown for 64-bit (BASELINE.md: 556 -> 159 M cells/s).  The momentum
+Cost: one extra (rows, cols) float32 plane (+8 B/cell of device-memory
+traffic in a fused step: 48 B/cell against 40 for plain f32) and three
+adds — versus the reference's 2-3x slowdown for 64-bit on its GPUs
+(BASELINE.md: 556 -> 159 M cells/s).  Whether native f64 on the GPU costs
+less is measured, not assumed (ROADMAP).  The momentum
 components are NOT compensated: their per-step increments are orders of
 magnitude closer to their magnitudes (|q| ~ 0.1-10, dq ~ 1e-3-1e-1), and
 point-implicit friction re-damps them every step, so no comparable random

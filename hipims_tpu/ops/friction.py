@@ -28,7 +28,7 @@ def implicit_friction(z, qx, qy, zb, manning, dt, very_small):
 
     # cf / h^2 = g n^2 h^(-1/3) / h^2 = g n^2 h^(-7/3): one exp/log pair
     # (h_safe > 0 on the non-skip path) replaces the reference's
-    # pow(h, 1/3) plus two divisions, and lowers cleanly in Pallas/Mosaic.
+    # pow(h, 1/3) plus two divisions, and lowers cleanly inside a Pallas kernel.
     inv_h2 = GRAVITY * manning * manning \
         * jnp.exp(jnp.log(h_safe) * (-7.0 / 3.0))
     sfx = -inv_h2 * qx * q_mag

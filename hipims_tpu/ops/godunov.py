@@ -15,10 +15,10 @@ structural, not numerical:
 * all branches (disabled cells, dry neighbourhoods, suspended timestep)
   become where-masks.
 
-``godunov_interior`` is the shared core: it takes arrays with a one-cell
-halo ring and returns the updated interior.  The whole-grid step
-(godunov_step) and the Pallas row-tile kernel (ops/pallas/stencil.py) both
-call it, so the two backends are numerically identical by construction.
+``godunov_interior`` takes arrays with a one-cell halo ring and returns
+the updated interior; its per-cell half, ``godunov_cell_update``, is also
+the body of the GPU kernel (ops/triton_step.py), so the two backends run
+the same arithmetic.
 """
 
 from __future__ import annotations
@@ -79,8 +79,6 @@ def godunov_interior(z, zmax, qx, qy, zb, n, dt, params: SchemeParams,
         z[1:, :], zb[1:, :], qy[1:, :], qx[1:, :], vs)
 
     sl = (slice(1, -1), slice(1, -1))
-    zc = z[sl]
-    zbc = zb[sl]
 
     def face(fl, idx):
         return type(fl)(*(a[idx] for a in fl))
@@ -89,6 +87,29 @@ def godunov_interior(z, zmax, qx, qy, zb, n, dt, params: SchemeParams,
     f_w = face(fx, (slice(1, -1), slice(None, -1)))
     f_n = face(fy, (slice(1, None), slice(1, -1)))
     f_s = face(fy, (slice(None, -1), slice(1, -1)))
+
+    dry = (z - zb) < vs
+    dry5 = (dry[sl] & dry[1:-1, 2:] & dry[1:-1, :-2]
+            & dry[2:, 1:-1] & dry[:-2, 1:-1])
+    return godunov_cell_update(
+        z[sl], zmax[sl], qx[sl], qy[sl], zb[sl], n[sl],
+        f_e, f_w, f_n, f_s, dry5, dt, params,
+        comp_c=None if comp is None else comp[sl])
+
+
+def godunov_cell_update(zc, zmax_c, qx_c0, qy_c0, zbc, nc,
+                        f_e, f_w, f_n, f_s, dry5, dt, params: SchemeParams,
+                        comp_c=None):
+    """Per-cell update from the cell's four solved faces (elementwise).
+
+    ``f_e``/``f_w``/``f_n``/``f_s`` are the InterfaceFlux solutions of the
+    cell's east, west, north and south faces (the cell is the left side
+    of its east/north faces), ``dry5`` flags a dry five-cell
+    neighbourhood.  Shared by the whole-grid XLA step and the GPU kernel
+    (ops/triton_step.py), so both backends run the same arithmetic.
+    Returns (z, zmax, qx, qy) or, with ``comp_c``, (z, zmax, qx, qy,
+    comp)."""
+    vs = params.very_small
 
     # Per-cell local datum and its momentum-flux term at each face.
     zb_e, c_e = local_datum(zc, f_e.zbm)
@@ -124,44 +145,38 @@ def godunov_interior(z, zmax, qx, qy, zb, n, dt, params: SchemeParams,
     # before applying the update.
     stop = f_e.stop_l | f_w.stop_r | f_n.stop_l | f_s.stop_r
 
-    qx_c = jnp.where(stop, 0.0, qx[sl])
-    qy_c = jnp.where(stop, 0.0, qy[sl])
-    if comp is None:
+    qx_c = jnp.where(stop, 0.0, qx_c0)
+    qy_c = jnp.where(stop, 0.0, qy_c0)
+    if comp_c is None:
         z_new = zc - dt * d_z
     else:
-        comp_c = comp[sl]
         z_new, comp_new = comp_add(zc, comp_c, -(dt * d_z))
     qx_new = qx_c - dt * d_qx
     qy_new = qy_c - dt * d_qy
 
     if params.friction:
         qx_new, qy_new = implicit_friction(
-            z_new, qx_new, qy_new, zbc, n[sl],
+            z_new, qx_new, qy_new, zbc, nc,
             jnp.maximum(dt, vs), vs)
 
-    zmax_c = zmax[sl]
     zmax_new = jnp.where((z_new > zmax_c) & (zmax_c > -9990.0),
                          z_new, zmax_c)
     # Compensated runs judge dryness on the TRUE surface z + comp:
     # sub-ulp water lives entirely in the residue, and clamping on the
     # visible value alone would silently erase it.
-    dry_new = ((z_new - zbc < vs) if comp is None
+    dry_new = ((z_new - zbc < vs) if comp_c is None
                else ((z_new - zbc) + comp_new < vs))
     z_new = jnp.where(dry_new, zbc, z_new)
 
     # --- Skip masks ------------------------------------------------------
     disabled = (zmax_c <= C.NODATA) | (zc == C.NODATA)
-    h_raw = z - zb
-    dry = h_raw < vs
-    dry5 = (dry[sl] & dry[1:-1, 2:] & dry[1:-1, :-2]
-            & dry[2:, 1:-1] & dry[:-2, 1:-1])
     keep = disabled | dry5 | (dt <= 0.0)
 
     z_out = jnp.where(keep, zc, z_new)
     zmax_out = jnp.where(keep, zmax_c, zmax_new)
-    qx_out = jnp.where(keep, qx[sl], qx_new)
-    qy_out = jnp.where(keep, qy[sl], qy_new)
-    if comp is None:
+    qx_out = jnp.where(keep, qx_c0, qx_new)
+    qy_out = jnp.where(keep, qy_c0, qy_new)
+    if comp_c is None:
         return z_out, zmax_out, qx_out, qy_out
     comp_new = jnp.where(dry_new, 0.0, comp_new)
     comp_out = jnp.where(keep, comp_c, comp_new)

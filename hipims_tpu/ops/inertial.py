@@ -24,7 +24,7 @@ from .compensated import comp_add
 from .godunov import SchemeParams
 
 
-def _face_discharge(manning, dt, prev_q, level_up, bed_up, level_down,
+def face_discharge(manning, dt, prev_q, level_up, bed_up, level_down,
                     bed_down, dx, vs):
     """Inertial per-unit-width discharge across one face."""
     g = C.GRAVITY
@@ -59,7 +59,7 @@ def inertial_interior(z, zmax, qx, qy, zb, n, dt, params: SchemeParams,
     # "down" = west side (i); previous discharge = east cell's stored W-face
     # value.  Two variants differing only in the computing cell's n.
     def x_flux(nv):
-        return _face_discharge(nv, dt, qx[:, 1:],
+        return face_discharge(nv, dt, qx[:, 1:],
                                z[:, 1:], zb[:, 1:],
                                z[:, :-1], zb[:, :-1], dx, vs)
 
@@ -68,7 +68,7 @@ def inertial_interior(z, zmax, qx, qy, zb, n, dt, params: SchemeParams,
 
     # y-interfaces between (j, x) and (j+1, x): "up" = north (j+1).
     def y_flux(nv):
-        return _face_discharge(nv, dt, qy[1:, :],
+        return face_discharge(nv, dt, qy[1:, :],
                                z[1:, :], zb[1:, :],
                                z[:-1, :], zb[:-1, :], dx, vs)
 
@@ -76,39 +76,42 @@ def inertial_interior(z, zmax, qx, qy, zb, n, dt, params: SchemeParams,
     qb_y = y_flux(n[1:, :])    # north cell's S face
 
     sl = (slice(1, -1), slice(1, -1))
-    q_e = qa_x[1:-1, 1:]
-    q_w = qb_x[1:-1, :-1]
-    q_n = qa_y[1:, 1:-1]
-    q_s = qb_y[:-1, 1:-1]
+    dry = (z - zb) < vs
+    dry5 = (dry[sl] & dry[1:-1, 2:] & dry[1:-1, :-2]
+            & dry[2:, 1:-1] & dry[:-2, 1:-1])
+    return inertial_cell_update(
+        z[sl], zmax[sl], qx[sl], qy[sl], zb[sl],
+        qa_x[1:-1, 1:], qb_x[1:-1, :-1], qa_y[1:, 1:-1], qb_y[:-1, 1:-1],
+        dry5, dt, params, comp_c=None if comp is None else comp[sl])
 
-    zc, zbc = z[sl], zb[sl]
+
+def inertial_cell_update(zc, zmax_c, qx_c, qy_c, zbc, q_e, q_w, q_n, q_s,
+                         dry5, dt, params: SchemeParams, comp_c=None):
+    """Per-cell update from the cell's four face discharges (elementwise;
+    shared by the XLA step and the GPU kernel, ops/triton_step.py).
+    The new W/S discharges become the cell's stored qx/qy."""
+    vs = params.very_small
     d_fsl = (q_e - q_w + q_n - q_s) / params.dy
-    if comp is None:
+    if comp_c is None:
         z_new = zc + dt * d_fsl
     else:
-        comp_c = comp[sl]
         z_new, comp_new = comp_add(zc, comp_c, dt * d_fsl)
 
-    zmax_c = zmax[sl]
     zmax_new = jnp.where(z_new > zmax_c, z_new, zmax_c)
     # Compensated runs judge dryness on the TRUE surface z + comp (see
-    # godunov_interior).
-    dry_new = ((z_new - zbc < vs) if comp is None
+    # godunov_cell_update).
+    dry_new = ((z_new - zbc < vs) if comp_c is None
                else ((z_new - zbc) + comp_new < vs))
     z_new = jnp.where(dry_new, zbc, z_new)
 
     disabled = (zmax_c <= C.NODATA) | (zc == C.NODATA)
-    h_raw = z - zb
-    dry = h_raw < vs
-    dry5 = (dry[sl] & dry[1:-1, 2:] & dry[1:-1, :-2]
-            & dry[2:, 1:-1] & dry[:-2, 1:-1])
     keep = disabled | dry5 | (dt <= 0.0)
 
     outs = (jnp.where(keep, zc, z_new),
             jnp.where(keep, zmax_c, zmax_new),
-            jnp.where(keep, qx[sl], q_w),
-            jnp.where(keep, qy[sl], q_s))
-    if comp is None:
+            jnp.where(keep, qx_c, q_w),
+            jnp.where(keep, qy_c, q_s))
+    if comp_c is None:
         return outs
     comp_new = jnp.where(dry_new, 0.0, comp_new)
     return outs + (jnp.where(keep, comp_c, comp_new),)

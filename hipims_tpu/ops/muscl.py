@@ -7,10 +7,10 @@ ops/godunov.py, every interface is solved once with the per-cell datum shift
 applied as a closed-form correction; the predictor's separate/contiguous
 face-buffer layouts collapse into four plain arrays that XLA keeps fused.
 
-``muscl_interior`` is the shared core (stencil radius 2): it takes arrays
-with a two-cell halo ring and returns the updated interior, so the XLA
-whole-grid step and the fused Pallas row-tile kernel share one numerical
-implementation.  Note the reference's MUSCL corrector leaves a TWO-cell
+``muscl_interior`` is the core (stencil radius 2): it takes arrays with a
+two-cell halo ring and returns the updated interior; the whole-grid step
+and the halo-deep mesh window both call it.  Note the reference's MUSCL
+corrector leaves a TWO-cell
 static ring (bounds check at src/Schemes/CLSchemeMUSCLHancock.clc:568-573).
 """
 
@@ -147,101 +147,13 @@ def muscl_predictor_interior(z, zmax, qx, qy, zb, dt,
     return tuple(pick(ex) for ex in (ex_n1, ex_e1, ex_s1, ex_w1))
 
 
-def muscl_predictor_base_slopes(z, zmax, qx, qy, zb, dt,
-                                params: SchemeParams):
-    """Half-step base state + limited slopes for the one-ring interior.
-
-    Returns (base, sx, sy), each a FaceExtrap-shaped 4-tuple of
-    (M-2, Cc-2) slabs, such that the four face extrapolations of
-    ``muscl_predictor_interior`` reconstruct BITWISE as
-    N = base + 0.5*sy, E = base + 0.5*sx, S = base - 0.5*sy,
-    W = base - 0.5*sx (first-order cells carry zero slopes and the
-    original state as base).  Storing 12 planes instead of 16 cuts the
-    split Pallas kernels' HBM traffic by ~17%.
-    """
-    vs = params.very_small
-    sl = (slice(1, -1), slice(1, -1))
-    n_i = (slice(2, None), slice(1, -1))
-    s_i = (slice(None, -2), slice(1, -1))
-    e_i = (slice(1, -1), slice(2, None))
-    w_i = (slice(1, -1), slice(None, -2))
-
-    zc, zbc = z[sl], zb[sl]
-    hc = zc - zbc
-    qxc, qyc = qx[sl], qy[sl]
-
-    first_order = first_order_mask(hc, zmax[n_i], zmax[e_i],
-                                   zmax[s_i], zmax[w_i])
-
-    sx = slope_vector(z[w_i], zb[w_i], qx[w_i], qy[w_i],
-                      zc, zbc, qxc, qyc,
-                      z[e_i], zb[e_i], qx[e_i], qy[e_i], vs)
-    sy = slope_vector(z[s_i], zb[s_i], qx[s_i], qy[s_i],
-                      zc, zbc, qxc, qyc,
-                      z[n_i], zb[n_i], qx[n_i], qy[n_i], vs)
-
-    def extrap(zv, hv, qxv, qyv, slope, coef):
-        return FaceExtrap(z=zv + coef * slope[0], h=hv + coef * slope[1],
-                          qx=qxv + coef * slope[2], qy=qyv + coef * slope[3])
-
-    ex_n0 = extrap(zc, hc, qxc, qyc, sy, +0.5)
-    ex_e0 = extrap(zc, hc, qxc, qyc, sx, +0.5)
-    ex_s0 = extrap(zc, hc, qxc, qyc, sy, -0.5)
-    ex_w0 = extrap(zc, hc, qxc, qyc, sx, -0.5)
-
-    fn = _flux_y(ex_n0, vs)
-    fe = _flux_x(ex_e0, vs)
-    fs = _flux_y(ex_s0, vs)
-    fw = _flux_x(ex_w0, vs)
-
-    inv_dx, inv_dy = 1.0 / params.dx, 1.0 / params.dy
-    src_x = -C.GRAVITY * 0.5 * (ex_e0.z + ex_w0.z) \
-        * ((ex_e0.z - ex_e0.h) - (ex_w0.z - ex_w0.h)) * inv_dx
-    src_y = -C.GRAVITY * 0.5 * (ex_n0.z + ex_s0.z) \
-        * ((ex_n0.z - ex_n0.h) - (ex_s0.z - ex_s0.h)) * inv_dy
-
-    d_z = (fe[0] - fw[0]) * inv_dx + (fn[0] - fs[0]) * inv_dy
-    d_qx = (fe[1] - fw[1]) * inv_dx + (fn[1] - fs[1]) * inv_dy - src_x
-    d_qy = (fe[2] - fw[2]) * inv_dx + (fn[2] - fs[2]) * inv_dy - src_y
-    d_z = _round_small(d_z, vs)
-    d_qx = _round_small(d_qx, vs)
-    d_qy = _round_small(d_qy, vs)
-
-    z_half = zc - 0.5 * dt * d_z
-    qx_half = qxc - 0.5 * dt * d_qx
-    qy_half = qyc - 0.5 * dt * d_qy
-    h_half = z_half - zbc
-
-    base = FaceExtrap(
-        z=jnp.where(first_order, zc, z_half),
-        h=jnp.where(first_order, hc, h_half),
-        qx=jnp.where(first_order, qxc, qx_half),
-        qy=jnp.where(first_order, qyc, qy_half))
-    sx_out = tuple(jnp.where(first_order, 0.0, s) for s in sx)
-    sy_out = tuple(jnp.where(first_order, 0.0, s) for s in sy)
-    return base, sx_out, sy_out
-
-
-def faces_from_base_slopes(base, sx, sy):
-    """Reconstruct the (N, E, S, W) FaceExtrap tuple from base + slopes;
-    bitwise-identical to muscl_predictor_interior's outputs."""
-    def extrap(slope, coef):
-        return FaceExtrap(z=base.z + coef * slope[0],
-                          h=base.h + coef * slope[1],
-                          qx=base.qx + coef * slope[2],
-                          qy=base.qy + coef * slope[3])
-    return (extrap(sy, +0.5), extrap(sx, +0.5),
-            extrap(sy, -0.5), extrap(sx, -0.5))
-
-
 def muscl_corrector_interior(z, zmax, qx, qy, zb, n, slabs, dt,
                              params: SchemeParams, comp=None):
     """Full-timestep corrector for the two-ring interior of (M, Cc) arrays.
 
     ``slabs`` are the predictor's (M-2, Cc-2) FaceExtrap slabs, where
     slab[j, i] belongs to cell (j+1, i+1) (no ring padding — the ring
-    extraps are never consumed, and Mosaic cannot lower the padding
-    concatenate anyway).  Returns the four updated (M-4, Cc-4) interior
+    extraps are never consumed).  Returns the four updated (M-4, Cc-4) interior
     fields (plus the updated compensation plane when ``comp`` is given;
     see ops/compensated.py — the half-step predictor state is a
     within-step temporary and is intentionally not compensated).
@@ -385,104 +297,3 @@ def muscl_step(state: FlowState, static: DomainStatic, dt,
     if comp is None:
         return new
     return new, comp.at[sl].set(out[4])
-
-
-def muscl_corrector_full(z, zmax, qx, qy, zb, n, faces, dt,
-                         params: SchemeParams, comp=None):
-    """Radius-1 corrector over FULL-SIZE face-extrapolation arrays.
-
-    ``faces`` are (M, Cc) FaceExtrap arrays aligned with the state (ring
-    entries may hold first-order placeholders; they are never consumed for
-    valid cells).  Returns the four updated (M-2, Cc-2) interior fields —
-    the caller is responsible for masking the scheme's two-cell static
-    ring.  Used by the split Pallas kernels; numerics identical to
-    muscl_corrector_interior.
-    """
-    vs = params.very_small
-    ex_n, ex_e, ex_s, ex_w = faces
-
-    fx = solve_interfaces_muscl(
-        ex_e.z[:, :-1], ex_e.h[:, :-1], ex_e.qx[:, :-1], ex_e.qy[:, :-1],
-        ex_w.z[:, 1:], ex_w.h[:, 1:], ex_w.qx[:, 1:], ex_w.qy[:, 1:],
-        qx[:, :-1], qx[:, 1:], vs,
-        qcl_cell=qy[:, :-1], qcr_cell=qy[:, 1:])
-    fy = solve_interfaces_muscl(
-        ex_n.z[:-1, :], ex_n.h[:-1, :], ex_n.qy[:-1, :], ex_n.qx[:-1, :],
-        ex_s.z[1:, :], ex_s.h[1:, :], ex_s.qy[1:, :], ex_s.qx[1:, :],
-        qy[:-1, :], qy[1:, :], vs,
-        qcl_cell=qx[:-1, :], qcr_cell=qx[1:, :])
-
-    sl = (slice(1, -1), slice(1, -1))
-    zc = z[sl]
-    zbc = zb[sl]
-
-    def face(fl, idx):
-        return type(fl)(*(a[idx] for a in fl))
-
-    f_e = face(fx, (slice(1, -1), slice(1, None)))
-    f_w = face(fx, (slice(1, -1), slice(None, -1)))
-    f_n = face(fy, (slice(1, None), slice(1, -1)))
-    f_s = face(fy, (slice(None, -1), slice(1, -1)))
-
-    zb_e, c_e = local_datum(ex_e.z[sl], f_e.zbm)
-    zb_w, c_w = local_datum(ex_w.z[sl], f_w.zbm)
-    zb_n, c_n = local_datum(ex_n.z[sl], f_n.zbm)
-    zb_s, c_s = local_datum(ex_s.z[sl], f_s.zbm)
-
-    inv_dx, inv_dy = 1.0 / params.dx, 1.0 / params.dy
-    z_e = f_e.hr + zb_e
-    z_w = f_w.hl + zb_w
-    z_n = f_n.hr + zb_n
-    z_s = f_s.hl + zb_s
-    src_x = -C.GRAVITY * 0.5 * (z_e + z_w) * (zb_e - zb_w) * inv_dx
-    src_y = -C.GRAVITY * 0.5 * (z_n + z_s) * (zb_n - zb_s) * inv_dy
-
-    d_z = (f_e.mass - f_w.mass) * inv_dx + (f_n.mass - f_s.mass) * inv_dy
-    d_qx = (((f_e.along + c_e) - (f_w.along + c_w)) * inv_dx
-            + (f_n.cross - f_s.cross) * inv_dy - src_x)
-    d_qy = ((f_e.cross - f_w.cross) * inv_dx
-            + ((f_n.along + c_n) - (f_s.along + c_s)) * inv_dy - src_y)
-    d_z = _round_small(d_z, vs)
-    d_qx = _round_small(d_qx, vs)
-    d_qy = _round_small(d_qy, vs)
-
-    stop = f_e.stop_l | f_w.stop_r | f_n.stop_l | f_s.stop_r
-    qx_c = jnp.where(stop, 0.0, qx[sl])
-    qy_c = jnp.where(stop, 0.0, qy[sl])
-    if comp is None:
-        z_new = zc - dt * d_z
-    else:
-        comp_c = comp[sl]
-        z_new, comp_new = comp_add(zc, comp_c, -(dt * d_z))
-    qx_new = qx_c - dt * d_qx
-    qy_new = qy_c - dt * d_qy
-
-    if params.friction:
-        qx_new, qy_new = implicit_friction(
-            z_new, qx_new, qy_new, zbc, n[sl],
-            jnp.maximum(dt, vs), vs)
-
-    # Compensated runs judge dryness on the TRUE surface z + comp:
-    # sub-ulp water lives entirely in the residue, and clamping on the
-    # visible value alone would silently erase it.
-    dry_new = ((z_new - zbc < vs) if comp is None
-               else ((z_new - zbc) + comp_new < vs))
-    z_new = jnp.where(dry_new, zbc, z_new)
-    zmax_c = zmax[sl]
-    zmax_new = jnp.where((z_new > zmax_c) & (zmax_c > -9990.0),
-                         z_new, zmax_c)
-
-    disabled = (zmax_c <= C.NODATA) | (zc == C.NODATA)
-    dry5 = ((zc - zbc < vs)
-            & (zmax[2:, 1:-1] < vs) & (zmax[:-2, 1:-1] < vs)
-            & (zmax[1:-1, 2:] < vs) & (zmax[1:-1, :-2] < vs))
-    keep = disabled | dry5 | (dt <= 0.0)
-
-    outs = (jnp.where(keep, zc, z_new),
-            jnp.where(keep, zmax_c, zmax_new),
-            jnp.where(keep, qx[sl], qx_new),
-            jnp.where(keep, qy[sl], qy_new))
-    if comp is None:
-        return outs
-    comp_new = jnp.where(dry_new, 0.0, comp_new)
-    return outs + (jnp.where(keep, comp_c, comp_new),)

@@ -1,7 +1,7 @@
 """Depth-positivity-preserving interface reconstruction + HLLC flux, vectorised
 over all interfaces of one axis at once.
 
-Design note (TPU-first): the reference evaluates every interface twice, once
+Design note: the reference evaluates every interface twice, once
 from each adjacent cell, with a per-cell vertical datum shift
 (reference: src/Schemes/CLSchemeGodunov.clc:27-159 reconstructInterface;
 src/Solvers/CLSolverHLLC.clc:27-248 riemannSolver).  The shift ``s`` lowers
@@ -73,7 +73,7 @@ def solve_interfaces(zl, zbl, qal, qcl, zr, zbr, qar, qcr,
 
     # Raw depths and velocities (velocity zeroed below the dry threshold, as
     # in the reference's pre-reconstruction step).  One reciprocal per side
-    # serves both components — division is the costly VPU op here.
+    # serves both components — division is the costly op here.
     hl_raw = zl - zbl
     hr_raw = zr - zbr
     inv_hl = jnp.where(hl_raw < vs, 0.0,
@@ -192,13 +192,12 @@ def _hllc(hl, hr, zbm, qal_r, qcl_r, qar_r, qcr_r,
     mom_l = hl * (vl - s_l)
     # The middle wave speed s_m = (s_l*mom_r - s_r*mom_l)/(mom_r - mom_l)
     # is consumed ONLY as the branch predicate s_m >= 0 below, so the
-    # division reduces to a sign agreement test (division is a
-    # multi-pass VPU op; the selection is bit-identical, including the
+    # division reduces to a sign agreement test (a division costs several
+    # arithmetic ops; the selection is bit-identical, including the
     # den == 0 fallback s_m = 0 which satisfies >= 0).
     sm_num = s_l * mom_r - s_r * mom_l
     sm_den = mom_r - mom_l
-    # Pure boolean algebra (a bool-valued select lowers to an i1
-    # truncation Mosaic rejects).
+    # Pure boolean algebra, no bool-valued select.
     sm_nonneg = (((sm_den > 0.0) & (sm_num >= 0.0))
                  | ((sm_den < 0.0) & (sm_num <= 0.0))
                  | (sm_den == 0.0))

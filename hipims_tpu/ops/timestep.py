@@ -4,8 +4,9 @@ The reference runs a two-stage reduction (grid-stride max of per-cell wave
 speeds into per-workgroup partials, then a single-work-item finalize that
 also advances time and applies all the clamps:
 src/Schemes/CLDynamicTimestep.clc:167-249 tst_Reduce, :28-146
-tst_Advance_Normal).  On TPU the reduction is a single fused ``jnp.max``;
-the controller is scalar arithmetic carried through the scan.
+tst_Advance_Normal).  Here the reduction is a single fused ``jnp.max`` (or
+per-block partials from the GPU kernel, reduced the same way); the
+controller is scalar arithmetic carried through the scan.
 
 The reference's "negative timestep" convention is kept: when simulation time
 reaches the sync/target time, dt flips negative, which suspends every kernel
@@ -40,12 +41,16 @@ class TimestepParams(NamedTuple):
 
 
 def max_wave_speed(z, zmax, qx, qy, zb, quite_small, simplified=False):
-    """Global maximum per-cell wave speed for the CFL condition.
+    """Global maximum per-cell wave speed for the CFL condition
+    (reference: src/Schemes/CLDynamicTimestep.clc:185-223)."""
+    return jnp.max(cell_wave_speed(z, zmax, qx, qy, zb, quite_small,
+                                   simplified))
 
-    Per cell: max over axes of |u| + sqrt(g h) (or sqrt(g h) alone for the
-    simplified/inertial variant), over enabled cells with depth above the
-    QUITE_SMALL threshold (reference: src/Schemes/CLDynamicTimestep.clc:185-223).
-    """
+
+def cell_wave_speed(z, zmax, qx, qy, zb, quite_small, simplified=False):
+    """Per-cell wave speed: max over axes of |u| + sqrt(g h) (or sqrt(g h)
+    alone for the simplified/inertial variant) on enabled cells with depth
+    above the QUITE_SMALL threshold, 0 elsewhere."""
     h = z - zb
     wet = (h > quite_small) & (zmax > C.NODATA)
     h_safe = jnp.where(wet, h, 1.0)
@@ -54,8 +59,7 @@ def max_wave_speed(z, zmax, qx, qy, zb, quite_small, simplified=False):
         speed = celerity
     else:
         speed = jnp.maximum(jnp.abs(qx), jnp.abs(qy)) / h_safe + celerity
-    speed = jnp.where(wet, speed, 0.0)
-    return jnp.max(speed)
+    return jnp.where(wet, speed, 0.0)
 
 
 def advance(carry: StepCarry, max_speed, sync_time, end_time, dx,

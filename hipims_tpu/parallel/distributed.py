@@ -5,12 +5,13 @@ domain censuses, and runs collectives on a dedicated thread
 (src/MPI/CMPIManager.cpp).  Under JAX, multi-host runs are the SAME
 program on every host with ``jax.distributed`` providing the global device
 view; the mesh in parallel/mesh.py then spans all hosts and the existing
-GSPMD/shard_map collectives ride ICI within a slice and DCN across slices.
+GSPMD/shard_map collectives run over NVLink within a host and the network
+across hosts.
 
-Typical pod-slice launch (one process per host):
+Typical launch (one process per host, coordinator "host:port"):
 
     from hipims_tpu.parallel.distributed import initialize_cluster
-    initialize_cluster()                    # env-driven on TPU pods
+    initialize_cluster(coordinator, n_proc, proc_id)
     mesh = make_mesh()                      # spans every host's devices
     sim = Simulation(domain, cfg, mesh=mesh)
 
@@ -27,8 +28,9 @@ import jax
 
 def initialize_cluster(coordinator_address=None, num_processes=None,
                        process_id=None):
-    """Initialise jax.distributed; on TPU pods all arguments come from the
-    environment.  Returns True on success; already-initialised is treated
+    """Initialise jax.distributed.  On a cluster that JAX detects (e.g. a
+    SLURM or Kubernetes launch) the arguments may come from the
+    environment; elsewhere pass all three.  Returns True on success; already-initialised is treated
     as success, any other failure propagates (a half-initialised cluster
     must not silently fall back to single-host)."""
     try:

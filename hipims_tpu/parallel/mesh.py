@@ -56,8 +56,8 @@ def shard_simulation_arrays(mesh: Mesh, state: FlowState,
                             static: DomainStatic):
     """Place state/static grids on the mesh, sharded 2-D.
 
-    Grid dimensions need not divide the mesh evenly — XLA pads internally —
-    but tile-aligned shards (multiples of 8x128 per device) are fastest.
+    Grid dimensions need not divide the mesh evenly — XLA pads
+    internally.
     """
     gs = grid_sharding(mesh)
     state = FlowState(*(jax.device_put(a, gs) for a in state))

@@ -72,9 +72,7 @@ def device_table(sim):
         return []
     devs = sim.mesh.devices
     py, px = devs.shape
-    # Blocks are laid out over the PADDED grid (tile alignment), but the
-    # table reports each block's share of the LOGICAL grid — the padding
-    # holds permanently-dry NODATA cells the user never configured.
+    # The table reports each block's share of the LOGICAL grid.
     rows, cols = sim.domain.rows, sim.domain.cols
     lr, lc = sim.domain.logical_rows, sim.domain.logical_cols
     r_loc = -(-rows // py)

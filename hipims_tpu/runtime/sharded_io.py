@@ -3,7 +3,7 @@ grids.
 
 The reference writes each domain's raster independently from its own
 device (src/Domain/Cartesian/CDomainCartesian.cpp:804-829) and never
-gathers the global grid anywhere.  The TPU rebuild's small-grid path
+gathers the global grid anywhere.  This rebuild's small-grid path
 gathers the whole grid on every process per output event
 (runtime/simulation._OutputSnapshot) — fine at test scale, fatal at the
 10^8-cell north star (~1.6 GB of host traffic per field per host per

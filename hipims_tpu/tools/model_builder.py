@@ -39,7 +39,7 @@ XML_TEMPLATE = """<?xml version="1.0"?>
 \t\t<description>{description}</description>
 \t</metadata>
 \t<execution>
-\t\t<executor name="TPU" />
+\t\t<executor name="XLA" />
 \t</execution>
 \t<simulation>
 \t\t<parameter name="duration" value="{duration}" />

@@ -45,7 +45,7 @@ class Benchmark:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Capture a device profile (works on TPU and CPU backends):
+    """Capture a device profile (works on GPU and CPU backends):
 
         with device_trace('/tmp/prof'):
             sim.run_to(60.0)

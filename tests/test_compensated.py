@@ -3,8 +3,8 @@
 The reference's papers mandate 64-bit arithmetic: at 32-bit, per-step
 surface increments fall below ulp(z) at real elevation datums, rainfall is
 absorbed outright, and depth errors exceed 0.1 m (BASELINE.md accuracy
-anchors; reference docs/papers/urban-flood-jhi tex:271, 338-339).  The TPU
-rebuild answers with two composable mechanisms instead of emulated f64:
+anchors; reference docs/papers/urban-flood-jhi tex:271, 338-339).  The
+rebuild answers with two composable mechanisms in single precision:
 
   1. a whole-domain vertical **datum shift** (Domain.build datum_shift) —
      removes the absolute elevation from the arithmetic, the whole-domain

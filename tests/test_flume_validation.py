@@ -9,7 +9,7 @@ framework's own numerics (the Newcastle golden is self-referential).
 The model geometry is rebuilt from the experiment sketch
 (UCL_obstacle.TIF) by tools/model_builder.build_dam_break_obstacle.
 
-Tolerance rationale (documented per VERDICT r3 item 4): 2D shallow-water
+Tolerance rationale: 2D shallow-water
 models of this experiment in the literature (Soares-Frazao & Zech 2007's
 own 2D simulations and later SWE studies) reproduce gauge depths to
 ~0.02 m RMSE away from the building, do noticeably worse in the

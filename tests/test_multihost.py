@@ -1,4 +1,4 @@
-"""Actual multi-process jax.distributed run (VERDICT r2 item 5).
+"""Actual multi-process jax.distributed run.
 
 Two CPU processes (4 virtual devices each) form one 8-device cluster via a
 localhost coordinator, run the same sharded simulation SPMD, gather the
@@ -85,7 +85,7 @@ sim2.run_to(3.0)
 z3 = gather_to_host(sim2.state.z)
 t3 = sim2.t
 
-# ---- Phase B (VERDICT r4 items 2+5): MUSCL-Hancock + forecast halo-deep
+# ---- Phase B: MUSCL-Hancock + forecast halo-deep
 # windows + a position-dependent gridded (radar) boundary + STREAMED
 # output I/O, all under the real 2-process cluster.  The streamed writer
 # must produce byte-identical rasters to the gathered writer.

@@ -44,8 +44,8 @@ def test_newcastle_model_runs(model_dir):
     assert model.config.scheme == "godunov"
     assert model.config.duration == 7200.0
     # The XML says "double"; the loader maps that to compensated-f32 (the
-    # f64-accuracy-class mode that is ~13x faster on TPU) with a logged
-    # notice — --precision double / "double-strict" force true f64.
+    # f64-accuracy-class mode) with a logged notice — --precision double /
+    # "double-strict" force true f64.
     assert model.config.dtype == "float32c"
     assert model.domain.rows == 195 and model.domain.cols == 342
     assert len(model.boundaries) == 2  # rainfall + drainage
@@ -164,7 +164,7 @@ def test_newcastle_f32c_field_level_accuracy(model_dir):
           f"max |dh|={max_err:.3f} m, volume err={vol_err:.2e}")
     # Papers' anchor: mean depth error < 0.01 m; max and volume errors
     # bounded too.  Measured: mean 1.5e-3, max 0.113 (two steep-pond-
-    # edge cells trading water — see docs/ROOFLINE.md), volume 1.5e-4;
+    # edge cells trading water with opposite signs), volume 1.5e-4;
     # the bounds leave ~2x headroom while failing a real regression.
     assert mean_err < 0.01, f"mean wet-cell |dh| = {mean_err:.4f} m"
     assert max_err < 0.25, f"max |dh| = {max_err:.3f} m"

@@ -1,4 +1,4 @@
-"""Streamed (bounded-memory) output/checkpoint I/O — VERDICT r4 item 2.
+"""Streamed (bounded-memory) output/checkpoint I/O.
 
 The streamed path must produce byte-identical raster files and
 np.load-identical checkpoints versus the full-gather path, while never
@@ -60,7 +60,7 @@ def test_chunk_rows_budget():
 
 @pytest.mark.parametrize("mesh_n", [None, 8])
 def test_streamed_rasters_match_gathered_bytes(tmp_path, mesh_n):
-    """The VERDICT done-condition: streamed writer output is
+    """The done-condition: streamed writer output is
     byte-identical to the gathered writer (TIFF and ASC), under both the
     single-device and 8-device-mesh layouts."""
     from hipims_tpu.runtime.output import RasterOutputWriter

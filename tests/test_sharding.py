@@ -73,7 +73,7 @@ def test_sharded_with_rainfall(mesh8):
     assert shd.volume() > 0
 
 
-@pytest.mark.parametrize("scheme", ["godunov", "muscl-hancock"])
+@pytest.mark.parametrize("scheme", ["godunov", "muscl-hancock", "inertial"])
 def test_forecast_halo_deep_matches_timestep(scheme, mesh8):
     """Halo-deep (forecast) windows must reproduce per-step GSPMD halos."""
     def build(sync):
@@ -121,73 +121,9 @@ def test_forecast_with_rainfall(mesh8):
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernels under the mesh (interpret mode on CPU; VERDICT r2 item 2).
-# ---------------------------------------------------------------------------
-
-def _run_f32(scheme, mesh, backend, n=64, duration=1.0, sync="timestep",
-             window=1):
-    dom = circular_dam_domain(n=n)
-    cfg = SimulationConfig(scheme=scheme, duration=duration,
-                           output_frequency=duration, friction=True,
-                           batch_size=4, batch_auto=False, dtype="float32",
-                           kernel_backend=backend, sync_method=sync,
-                           forecast_window=window)
-    sim = Simulation(dom, cfg, mesh=mesh)
-    sim.run()
-    return sim
-
-
-@pytest.mark.parametrize("scheme", ["godunov", "muscl-hancock", "inertial"])
-def test_mesh_pallas_matches_xla(scheme, mesh8):
-    """The fused kernels on halo-extended local blocks must reproduce the
-    single-device XLA run (modulo f32 fusion-order ulps)."""
-    shd = _run_f32(scheme, mesh8, "pallas")
-    assert shd.backend == "pallas"
-    assert shd._mesh_window == 1
-    ref = _run_f32(scheme, None, "xla")
-    assert shd.t == pytest.approx(ref.t, rel=1e-6)
-    a = ref.state_logical
-    b = shd.state_logical
-    for x, y, name in zip(a, b, ("z", "zmax", "qx", "qy")):
-        np.testing.assert_allclose(np.asarray(y), np.asarray(x),
-                                   rtol=1e-5, atol=1e-5, err_msg=name)
-
-
-@pytest.mark.parametrize("scheme,window", [("godunov", 3),
-                                           ("muscl-hancock", 2)])
-def test_mesh_pallas_forecast_window(scheme, window, mesh8):
-    """Halo-deep windows (several steps per exchange) with the fused
-    kernels — including the radius-2 MUSCL stencil whose validity decays
-    two rings per step."""
-    shd = _run_f32(scheme, mesh8, "pallas", sync="forecast", window=window)
-    assert shd.backend == "pallas"
-    assert shd._mesh_window == window
-    ref = _run_f32(scheme, None, "xla")
-    assert shd.t == pytest.approx(ref.t, rel=1e-6)
-    np.testing.assert_allclose(np.asarray(shd.state_logical.z),
-                               np.asarray(ref.state_logical.z),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_mesh_pallas_compensated(mesh8):
-    """float32c under the mesh: the residue plane rides the halo
-    exchange."""
-    dom = circular_dam_domain(n=64)
-    cfg = SimulationConfig(scheme="godunov", duration=1.0,
-                           output_frequency=1.0, batch_size=4,
-                           batch_auto=False, dtype="float32c",
-                           kernel_backend="pallas")
-    sim = Simulation(dom, cfg, mesh=mesh8)
-    assert sim.backend == "pallas" and sim.compensated
-    sim.run()
-    assert np.isfinite(np.asarray(sim.state.z)).all()
-    assert float(np.abs(np.asarray(sim.comp)).max()) > 0.0
-
-
-# ---------------------------------------------------------------------------
-# Position-dependent boundaries on the mesh (VERDICT r3 item 1: gridded
-# radar rain was georeferenced with local block coordinates under the
-# halo-deep/Pallas paths; cell boundaries were excluded outright).
+# Position-dependent boundaries on the mesh (gridded radar rain must be
+# georeferenced in global coordinates under the halo-deep path; cell
+# boundaries must scatter by global index).
 # ---------------------------------------------------------------------------
 
 def _ne_quadrant_rain(n, dx):
@@ -202,16 +138,15 @@ def _ne_quadrant_rain(n, dx):
                            offset_x=0.0, offset_y=0.0, mass_flux=False)
 
 
-def _build_gridded_sim(n, mesh, dtype="float64", backend="xla",
-                       sync="timestep", window=1, scheme="godunov"):
+def _build_gridded_sim(n, mesh, dtype="float64", sync="timestep", window=1,
+                       scheme="godunov"):
     from hipims_tpu.domain import Domain
     dom = Domain(zb=np.zeros((n, n)), manning=0.03, dx=2.0, dy=2.0)
     dom.set_initial_depth(0.0)
     cfg = SimulationConfig(scheme=scheme, duration=30.0,
                            output_frequency=30.0, batch_size=8,
                            batch_auto=False, dtype=dtype,
-                           kernel_backend=backend, sync_method=sync,
-                           forecast_window=window)
+                           sync_method=sync, forecast_window=window)
     return Simulation(dom, cfg, boundaries=(_ne_quadrant_rain(n, 2.0),),
                       mesh=mesh)
 
@@ -237,30 +172,6 @@ def test_gridded_rain_mesh_xla(sync, window, mesh8):
     assert d[n // 2:, n // 2:].sum() > 0.98 * d.sum() > 0.0
 
 
-@pytest.mark.parametrize("scheme,sync,window", [
-    ("godunov", "timestep", 1), ("godunov", "forecast", 3),
-    ("muscl-hancock", "timestep", 1)])
-def test_gridded_rain_mesh_pallas(scheme, sync, window, mesh8):
-    """Gridded rain under the Pallas halo-deep mesh path (the round-3
-    confirmed-bug path: backend='pallas' routes even sync='timestep'
-    through halo-deep), including the radius-2 MUSCL stencil whose
-    forcing mask is two rings deep."""
-    n = 64
-    ref = _build_gridded_sim(n, None, dtype="float32", scheme=scheme)
-    ref.run()
-    shd = _build_gridded_sim(n, mesh8, dtype="float32", backend="pallas",
-                             sync=sync, window=window, scheme=scheme)
-    assert shd.backend == "pallas"
-    shd.run()
-    assert ref.volume() > 0.0
-    assert shd.volume() == pytest.approx(ref.volume(), rel=1e-5)
-    np.testing.assert_allclose(np.asarray(shd.state_logical.z),
-                               np.asarray(ref.state_logical.z),
-                               rtol=1e-5, atol=1e-6)
-    d = shd.depth()
-    assert d[n // 2:, n // 2:].sum() > 0.98 * d.sum() > 0.0
-
-
 def _inflow_cells(n):
     """A line of fixed-depth source cells crossing every mesh block row."""
     from hipims_tpu.ops import boundaries as B
@@ -274,16 +185,15 @@ def _inflow_cells(n):
                           discharge_mode=B.DISCHARGE_IGNORE)
 
 
-def _build_cell_sim(n, mesh, dtype="float64", backend="xla",
-                    sync="timestep", window=1):
+def _build_cell_sim(n, mesh, dtype="float64", sync="timestep", window=1,
+                    scheme="godunov"):
     from hipims_tpu.domain import Domain
     dom = Domain(zb=np.zeros((n, n)), manning=0.03, dx=2.0, dy=2.0)
     dom.set_initial_depth(0.0)
-    cfg = SimulationConfig(scheme="godunov", duration=10.0,
+    cfg = SimulationConfig(scheme=scheme, duration=10.0,
                            output_frequency=10.0, batch_size=8,
                            batch_auto=False, dtype=dtype,
-                           kernel_backend=backend, sync_method=sync,
-                           forecast_window=window)
+                           sync_method=sync, forecast_window=window)
     return Simulation(dom, cfg, boundaries=(_inflow_cells(n),), mesh=mesh)
 
 
@@ -301,21 +211,6 @@ def test_cell_boundary_mesh_xla(sync, window, mesh8):
     np.testing.assert_allclose(np.asarray(shd.state.z),
                                np.asarray(ref.state.z), rtol=1e-12,
                                atol=1e-12)
-
-
-def test_cell_boundary_mesh_pallas(mesh8):
-    """Cell boundaries no longer force the silent XLA fallback: the
-    Pallas mesh path applies them via origin-mapped local scatter."""
-    n = 64
-    ref = _build_cell_sim(n, None, dtype="float32")
-    ref.run()
-    shd = _build_cell_sim(n, mesh8, dtype="float32", backend="pallas")
-    assert shd.backend == "pallas"
-    shd.run()
-    assert shd.volume() == pytest.approx(ref.volume(), rel=1e-5)
-    np.testing.assert_allclose(np.asarray(shd.state_logical.z),
-                               np.asarray(ref.state_logical.z),
-                               rtol=1e-5, atol=1e-6)
 
 
 def test_cell_boundary_out_of_block_scatter_is_dropped():
@@ -383,7 +278,7 @@ def test_muscl_rainfall_halo_deep_matches_single_device(mesh8):
 def test_extreme_aspect_mesh_matches_single_device(scheme, shape):
     """Deliberately non-square 1x8 / 8x1 meshes (one mesh axis unsplit):
     the halo machinery must degrade to strip exchanges along a single
-    axis and still reproduce the single-device run (VERDICT r4 item 5)."""
+    axis and still reproduce the single-device run."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     mesh = make_mesh(8, shape=shape)
@@ -443,8 +338,8 @@ print("OK16")
 @pytest.mark.slow
 def test_sixteen_device_mesh_forecast(tmp_path):
     """16 virtual devices (4x4 and 2x8), MUSCL + forecast windows +
-    gridded rain vs single-device — beyond the suite-wide 8-device cap
-    (VERDICT r4 item 5)."""
+    gridded rain vs single-device — beyond the suite-wide 8-device
+    cap."""
     import os
     import subprocess
     import sys

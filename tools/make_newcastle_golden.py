@@ -35,7 +35,9 @@ def main():
     shutil.copytree(ref / "newcastle-centre", work / "newcastle-centre")
 
     from hipims_tpu.io.xml_config import load_config
+    from hipims_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     model = load_config(work / "newcastle-centre.xml")
     # The loader maps the XML's "double" to compensated-f32 by default;
     # the golden must be the true-f64 path.

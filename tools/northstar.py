@@ -3,24 +3,22 @@ target), measuring the steady scan rate AND a full streamed output +
 checkpoint event at that scale.
 
 Defaults: 10240 x 10240 = 104,857,600 cells, Godunov, compensated-f32,
-Pallas backend.  Device memory: 7 f32 planes ~2.9 GB — comfortably
-inside one v5e's HBM.  The output event runs through the streamed I/O
+automatic kernel choice.  Device memory: 7 f32 planes ~2.9 GB — well
+inside one card's 80 GB.  The output event runs through the streamed I/O
 path (io_mode auto engages far below this size), writing a deflate
 GeoTIFF + a streamed checkpoint with bounded (io_chunk_mb) host chunks.
 
-Writes NORTHSTAR.json.  Env knobs: NORTHSTAR_ROWS/COLS, NORTHSTAR_STEPS,
-NORTHSTAR_BACKEND, NORTHSTAR_SCHEME, NORTHSTAR_DTYPE.
+Writes results/northstar.json.  Env knobs: NORTHSTAR_ROWS/COLS,
+NORTHSTAR_STEPS, NORTHSTAR_BACKEND, NORTHSTAR_SCHEME, NORTHSTAR_DTYPE.
 """
 
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
 
 import numpy as np  # noqa: E402
 
@@ -32,6 +30,9 @@ def main():
     from hipims_tpu.domain import Domain
     from hipims_tpu.runtime import Simulation, SimulationConfig
     from hipims_tpu.runtime.output import RasterOutputWriter
+    from hipims_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     rows = int(os.environ.get("NORTHSTAR_ROWS", 10240))
     cols = int(os.environ.get("NORTHSTAR_COLS", 10240))
@@ -51,7 +52,7 @@ def main():
                                    2.0).astype(np.float32))
     del r2
 
-    outdir = "/tmp/northstar_out"
+    outdir = tempfile.mkdtemp(prefix="northstar_")
     writer = RasterOutputWriter(
         [dict(value="depth", format="tif", target="depth_%t.tif")],
         outdir, dom)
@@ -70,7 +71,7 @@ def main():
     t0 = time.time()
     state, carry, comp = sim._run_batch(sim.state, sim.carry, sim.static,
                                         sync, sim.comp, n_steps=steps)
-    _ = float(carry.t)
+    jax.block_until_ready((state, carry, comp))
     compile_s = time.time() - t0
     print(f"warm batch (incl compile): {compile_s:.0f}s", flush=True)
 
@@ -79,7 +80,7 @@ def main():
         t0 = time.time()
         state, carry, comp = sim._run_batch(state, carry, sim.static,
                                             sync, comp, n_steps=steps)
-        _ = float(carry.t)
+        jax.block_until_ready((state, carry, comp))
         times.append(time.time() - t0)
     rate = rows * cols * steps / min(times)
     print(f"rate: {rate / 1e9:.2f} G cells/s", flush=True)
@@ -98,6 +99,7 @@ def main():
         rows=rows, cols=cols, cells=rows * cols, scheme=scheme,
         dtype=dtype, backend=sim.backend,
         device=str(jax.devices()[0]),
+        device_kind=jax.devices()[0].device_kind,
         steps_timed=steps,
         cells_per_s=round(rate, 1),
         warm_batch_incl_compile_s=round(compile_s, 1),
@@ -108,7 +110,8 @@ def main():
         final_dt_s=round(float(carry.dt), 4),
     )
     out = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "NORTHSTAR.json")
+        os.path.abspath(__file__))), "results", "northstar.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     merged = {}
     if os.path.exists(out):
         try:
